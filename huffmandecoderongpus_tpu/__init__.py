@@ -1,17 +1,18 @@
-"""TPU-native parallel Huffman codec.
+"""Parallel Huffman codec for the GPU.
 
 A from-scratch JAX / Pallas / shard_map framework with the capabilities of
 the reference GPU framework (BeauJoh/HuffmanDecoderOnGPUs): the speculative
 "decode from every bit offset" parallel algorithm, a zoo of serial/table
 decoders, a benchmark harness (verify + min-of-25), and — new here — a
 matching canonical `.huff` encoder (the reference ships no encoder;
-see /root/reference/framework/huffdata.c:27-68, reader only).
+see reference framework/huffdata.c:27-68, reader only).
 
 Layering (bottom-up):
   huffio    — .huff container read/write, Huffman tree build + metrics, bit I/O
   native    — C++ host runtime (serial oracles, encoder bitpack) via ctypes
   ops       — device compute: LUTs, bit windows, the 6-stage speculative
-              pipeline (jnp/XLA and Pallas variants)
+              pipeline (XLA), the lane DFA (XLA) and its GPU kernels
+              (Pallas, Triton route)
   models    — the decoder zoo (registry of named decoders)
   parallel  — mesh / shard_map block-parallel decode, multi-host init
   harness   — evaluate (verify + min-of-25), benchmark suites, CLI

@@ -1,7 +1,7 @@
 """Benchmark harness: verify + min-of-25 evaluation, scaling sweeps, CLI.
 
-TPU-native counterpart of the reference's decodeUtil/timing/mainrun layers
-(/root/reference/framework/decodeUtil.c, timing.c, mainrun.c).
+Counterpart of the reference's decodeUtil/timing/mainrun layers
+(reference framework/decodeUtil.c, timing.c, mainrun.c).
 """
 
 from huffmandecoderongpus_tpu.harness.evaluate import (  # noqa: F401

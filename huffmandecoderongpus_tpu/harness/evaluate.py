@@ -1,7 +1,7 @@
 """The benchmark harness: verify once, then report the minimum of N timed runs.
 
 Semantics parity with the reference's evaluate()
-(/root/reference/framework/decodeUtil.c:30-70): one checked run (byte-compared
+(reference framework/decodeUtil.c:30-70): one checked run (byte-compared
 against ground truth, abort on mismatch), then ``REPEATS`` timed runs keeping
 the minimum wall-clock seconds.  The first (verify) run participates in the
 minimum exactly as in the reference — for jitted decoders it carries compile
@@ -26,9 +26,9 @@ REPEATS = 25
 
 #: Per-decoder wall-clock budget for the timing loop, seconds.  The
 #: reference runs a fixed 25 repeats (decodeUtil.c:54-64) because all its
-#: decoders are sub-second; our suite spans ~1 ms (Pallas lane decoders)
-#: to ~8 s (the faithful speculative pipeline on the TPU gather cliff), so
-#: a fixed count would burn minutes on decoders already measured to 1%.
+#: decoders are sub-second; our suite spans milliseconds (the GPU lane
+#: decoder) to seconds (the serial and speculative contrast rows), so a
+#: fixed count would burn minutes on decoders already measured to 1%.
 #: After the verify run, the repeat count is scaled down (never up) so
 #: repeats * first_run <= budget, keeping every suite row bounded.
 TIME_BUDGET_S = 30.0

@@ -1,11 +1,9 @@
 """Scaling-efficiency sweep: decode throughput vs mesh size.
 
-The BASELINE.json north star asks for >=80% scaling efficiency from 1 chip
-upward (data-parallel blocks, broadcast tables, ordered gather).  This
-sweep times the block-parallel sharded decode on growing 1-D meshes and
-reports efficiency = speedup(n) / n.  On real multi-chip hardware the same
-code measures true scaling; on a virtual CPU mesh it validates the
-machinery and the collective layout (the numbers then reflect host cores).
+This sweep times the block-parallel sharded decode on growing 1-D meshes and
+reports efficiency = speedup(n) / n.  On several GPUs the same code
+measures true scaling; on a virtual CPU mesh it validates the machinery and
+the collective layout (the numbers then reflect host cores).
 """
 
 from __future__ import annotations
@@ -30,16 +28,12 @@ def scaling_sweep(hf, ucd: np.ndarray | None = None, sizes=None,
     """Time the sharded decode across mesh sizes; verify vs ``ucd``.
 
     ``path="lane"`` (default) drives decode_lane_sharded — the multi-chip
-    performance path (round-1 swept the speculative block decoder, which
-    is gather-cliff-bound on TPU and said nothing about the perf path);
-    ``path="wide"`` drives the round-2 widescan shard bodies (Mosaic
-    kernels — meaningful on TPU meshes, interpret-mode-slow on CPU);
-    ``path="block"`` keeps the reference-shaped speculative pipeline."""
+    performance path; ``path="block"`` keeps the reference-shaped
+    speculative pipeline."""
     import jax
 
     from huffmandecoderongpus_tpu.parallel import (
-        decode_sharded, lane_sharded_runner, lane_sharded_wide_runner,
-        make_mesh)
+        decode_sharded, lane_sharded_runner, make_mesh)
 
     n_dev = len(jax.devices())
     if sizes is None:
@@ -48,20 +42,17 @@ def scaling_sweep(hf, ucd: np.ndarray | None = None, sizes=None,
     base = None
     for n in sizes:
         mesh = make_mesh(n)
-        if path in ("lane", "wide"):
+        if path == "lane":
             # stage inputs once; time only the sharded device program
             # (scans + stitching collective), not host prep/compaction
-            runner = (lane_sharded_wide_runner if path == "wide"
-                      else lane_sharded_runner)
-            run, materialize = runner(hf, mesh=mesh)
+            run, materialize = lane_sharded_runner(hf, mesh=mesh)
             out, total = materialize(run())  # compile + warm + verify
             if total != hf.uncompressed_size:
                 raise RuntimeError(f"wrong size at {n} devices: {total}")
             if ucd is not None and not np.array_equal(out, ucd):
                 raise RuntimeError(f"sharded decode wrong at {n} devices")
             def timed_once():
-                outs = run()
-                np.asarray(outs[-1])  # sync on the total scalar
+                jax.block_until_ready(run())
         else:
             def timed_once(mesh=mesh):
                 decode_sharded(hf, mesh=mesh, check_size=False)

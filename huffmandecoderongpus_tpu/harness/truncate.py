@@ -2,7 +2,7 @@
 boundary and benchmark the reduced instance.
 
 Semantics parity with setTargetSizes + graphtest
-(/root/reference/framework/mainrun.c:361-410): walk the stream up to the
+(reference framework/mainrun.c:361-410): walk the stream up to the
 target bit count, cut at the last completed codeword, and set the matching
 uncompressed size.  The walk is native C++ (truncate_scan); the truncated
 instance shares the original payload bytes (sliced view + exact `bits`), just

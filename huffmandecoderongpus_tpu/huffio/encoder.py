@@ -2,7 +2,7 @@
 
 This is a **new capability**: the reference framework is decoder-only — its
 only file writer is the OpenCL kernel-binary cache
-(/root/reference/framework/openclapproach.c:155-161).  The encoder here is the
+(reference framework/openclapproach.c:155-161).  The encoder here is the
 host (numpy) path; a device (jnp/Pallas) encode op lives in
 ``ops/encode_ops.py``.
 """

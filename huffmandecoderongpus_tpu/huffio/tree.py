@@ -1,7 +1,7 @@
 """Huffman tree model: construction, code extraction, and the tree metrics
 the reference harness uses to size lookup tables.
 
-Metric semantics match /root/reference/framework/huffdata.c:224-278
+Metric semantics match reference framework/huffdata.c:224-278
 (tableHeight, treeSize, tableNumGroups, telescoped, tableMinDepth), but the
 implementations here are iterative (no recursion-depth limit) and operate on
 the flat ``(nodes, 3) int32`` array ``[sym, izero, ione]`` with row 0 as the

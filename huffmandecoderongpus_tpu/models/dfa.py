@@ -1,6 +1,6 @@
 """DFA table decoders: the jump-table and Lin approaches.
 
-Semantics parity with /root/reference/framework/jumptableapproach.c (linked
+Semantics parity with reference framework/jumptableapproach.c (linked
 k-bit jump tables, states deduped by code prefix = tree node, specialized
 jumpbits==8 byte path) and linapproach.c (one flat array, subtree roots every
 ``jumpbits`` levels plus "telescoped" partial-depth roots for shallow

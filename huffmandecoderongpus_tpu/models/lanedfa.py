@@ -1,4 +1,4 @@
-"""Registry entry for the lane-parallel bit-DFA device decoder."""
+"""Registry entries for the lane-parallel bit-DFA device decoders."""
 
 from __future__ import annotations
 
@@ -10,11 +10,11 @@ from huffmandecoderongpus_tpu.ops.lanedfa import decode_lanedfa, decode_lanedfa_
 
 @register("lane_dfa", backend="xla")
 def lane_dfa(hf, param=None) -> np.ndarray:
-    """Bit-serial DFA over G parallel lanes (device counterpart of
-    jumptableapproach.c/linapproach.c; see ops/lanedfa.py for the TPU-shaped
-    design rationale).  Uses the `.huffidx` sidecar when the HuffFile carries
-    one (skipping entry discovery); ``param`` optionally sets the lane
-    count for the discovery path."""
+    """Bit-serial DFA over G parallel lanes in plain XLA (device
+    counterpart of jumptableapproach.c/linapproach.c; see ops/lanedfa.py).
+    Uses the `.huffidx` sidecar when the HuffFile carries one (skipping
+    entry discovery); ``param`` optionally sets the lane count for the
+    discovery path."""
     index = getattr(hf, "index", None)
     if index is not None:
         offsets, k = index
@@ -31,62 +31,11 @@ def lane_dfa_sync(hf, param=None) -> np.ndarray:
     return decode_lanedfa_sync(hf, lanes=param)
 
 
-@register("lane_dfa_pallas", backend="pallas")
-def lane_dfa_pallas(hf, param=None) -> np.ndarray:
-    """Mosaic-kernel lane DFA: table lookups ride tpu.dynamic_gather
-    (ops/pallas_lanedfa.py).  Falls back to the interpreter off-TPU."""
-    import jax
+@register("lane_gpu", backend="gpu")
+def lane_gpu(hf, param=None) -> np.ndarray:
+    """Lane-scan kernels for the GPU (ops/lane_gpu.py): one thread per
+    lane, packed-word input, dense output written in place.  ``param``
+    optionally sets the lane count.  Raises when JAX has no GPU."""
+    from huffmandecoderongpus_tpu.ops.lane_gpu import decode_lane_gpu
 
-    from huffmandecoderongpus_tpu.ops.pallas_lanedfa import decode_lanedfa_pallas
-
-    interpret = jax.default_backend() not in ("tpu",)
-    return decode_lanedfa_pallas(hf, lanes=param, interpret=interpret)
-
-
-@register("lane_wide", backend="pallas")
-def lane_wide(hf, param=None) -> np.ndarray:
-    """Wide-lane fused Pallas decode to dense bytes on device
-    (ops/pallas_widescan.py): every DFA step is an all-lanes (R,128)
-    vector op; discovery, composition, fix-up, and compaction run as four
-    fused kernels in one program.  Performance successor of
-    lane_dfa_pallas (role of fastgpuOpt1.cu vs fastgpu.cu)."""
-    import jax
-
-    from huffmandecoderongpus_tpu.ops.pallas_widescan import decode_widescan
-
-    interpret = jax.default_backend() not in ("tpu",)
-    # A `.huffidx` sidecar is NOT auto-used here: the indexed program
-    # (ops.pallas_widescan.decode_widescan_indexed) skips discovery but
-    # pads every lane to the longest block's bit length, and its
-    # gather-based host staging outweighs the device-side savings in
-    # this whole-wrapper protocol (measured 2x slower wall even on
-    # phase-locked streams where discovery's tail is worst).  It remains
-    # the right tool under the staged device protocol — bounded
-    # worst-case with no self-sync tail — via the ops API.
-    return decode_widescan(hf, lanes=param, interpret=interpret)
-
-
-@register("lane_oneshot", backend="pallas")
-def lane_oneshot(hf, param=None) -> np.ndarray:
-    """Single-dispatch fused decode (ops/pallas_oneshot.py): the whole
-    program — in-kernel word staging, scan+discovery, composition, fix,
-    compaction — in ONE pallas_call with VMEM-resident cells.  The
-    small-stream latency winner: this environment's per-program dispatch
-    floor is ~0.11 ms, and one dispatch beats the 4-kernel pipeline
-    below ~2 Mbit (paper1 0.119 ms vs 0.127, news 0.272 vs 0.322, v5e
-    round 4); `lane_wide` auto-routes such streams here.  Above that the
-    4-kernel grid's DMA/compute overlap wins (book2 0.516 vs 0.397).
-    Falls back to lane_wide outside its VMEM envelope."""
-    import jax
-
-    from huffmandecoderongpus_tpu.ops.pallas_oneshot import decode_oneshot
-    from huffmandecoderongpus_tpu.ops.pallas_widescan import (
-        EnvelopeError,
-        decode_widescan,
-    )
-
-    interpret = jax.default_backend() not in ("tpu",)
-    try:
-        return decode_oneshot(hf, lanes=param, interpret=interpret)
-    except EnvelopeError:
-        return decode_widescan(hf, lanes=param, interpret=interpret)
+    return decode_lane_gpu(hf, lanes=param)

@@ -2,8 +2,8 @@
 
 The reference implements this algorithm once per backend (pes/fastgpu/
 fastgpuOpt1/opencl/pacc).  Here the *same* jitted program runs on any XLA
-backend — the TPU entry is the metric path; the CPU entry plays the role the
-pes/pacc builds play (same semantics, host execution)."""
+backend — the default-device entry is the fastgpu role; the CPU entry plays
+the role the pes/pacc builds play (same semantics, host execution)."""
 
 from __future__ import annotations
 
@@ -29,11 +29,11 @@ def spec_xla(hf, param=None) -> np.ndarray:
     Timed calls include H2D/D2H transfer, matching the reference's
     whole-approach timing.
 
-    Suite budget 5 s: on TPU this decoder sits on the measured gather
-    cliff (DESIGN.md — ~6.5 s on kjv) and is kept in the suites as the
-    reference-shaped contrast row, not a contender; the cap keeps
-    ``bigtable`` on TPU to minutes instead of 30 s/corpus on a decoder
-    known to be hopeless there (mainrun.c:541-588 suite ergonomics)."""
+    Suite budget 5 s: this decoder builds per-bit step tables of
+    25 x 4 x bits bytes (pes.c:131) and is kept in the suites as the
+    reference-shaped contrast row, not a contender; the cap keeps the
+    suites from spending 30 s per corpus on it (mainrun.c:541-588 suite
+    ergonomics)."""
     return decode_xla(hf)
 
 
@@ -48,23 +48,12 @@ def spec_sharded(hf, param=None) -> np.ndarray:
     return decode_sharded(hf, mesh=mesh)
 
 
-@register("lane_sharded_wide", backend="pallas-sharded")
-def lane_sharded_wide(hf, param=None) -> np.ndarray:
-    """Widescan decode sharded over the mesh's lane axis
-    (parallel/lane_sharded.py::decode_lane_sharded_wide) — the round-2
-    multi-chip performance path: per-shard fused chunked scans + dense
-    compaction, stitched by one exit-map all_gather."""
-    from huffmandecoderongpus_tpu.parallel import (
-        decode_lane_sharded_wide, make_mesh)
-
-    mesh = make_mesh(int(param)) if param else make_mesh()
-    return decode_lane_sharded_wide(hf, mesh=mesh)
-
-
-@register("lane_sharded", backend="xla-sharded")
+@register("lane_sharded", backend="gpu-sharded")
 def lane_sharded(hf, param=None) -> np.ndarray:
-    """Lane-DFA decode with lanes sharded over the device mesh
-    (parallel/lane_sharded.py) — the performance multi-chip path."""
+    """The GPU lane-scan kernels with lanes sharded over the device mesh
+    (parallel/lane_sharded.py) — the performance multi-card path.
+    ``param`` optionally caps the number of mesh devices.  Raises when JAX
+    has no GPU."""
     from huffmandecoderongpus_tpu.parallel import decode_lane_sharded, make_mesh
 
     mesh = make_mesh(param) if param is not None else None

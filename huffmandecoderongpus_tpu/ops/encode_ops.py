@@ -7,8 +7,7 @@ already lives (e.g. compressing device-resident output before a transfer)
 and as the `ops`-layer parity piece its docstring promises.
 
 Pipeline (all static shapes):
-  1. per-byte (code, length) lookup — 256-entry tables via 64-entry chunked
-     gathers (the XLA fast path, see ops/lanedfa.small_gather)
+  1. per-byte (code, length) lookup in 256-entry tables
   2. exclusive cumsum of lengths -> per-symbol bit offsets
   3. each codeword straddles at most two 32-bit words (code length <= 25 <
      32): build both word contributions with shifts and OR-scatter them.
@@ -22,14 +21,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from huffmandecoderongpus_tpu.ops.lanedfa import small_gather
-
 
 @functools.partial(jax.jit, static_argnames=("n_words",))
 def _pack_device(data, code_tab, len_tab, *, n_words: int):
     data = data.astype(jnp.int32)
-    codes = small_gather(code_tab, data).astype(jnp.uint32)
-    lens = small_gather(len_tab, data)
+    codes = jnp.take(code_tab, data, mode="clip").astype(jnp.uint32)
+    lens = jnp.take(len_tab, data, mode="clip")
     offs = jnp.cumsum(lens) - lens  # exclusive prefix: bit offset per symbol
     total_bits = offs[-1] + lens[-1] if data.shape[0] else jnp.int32(0)
 

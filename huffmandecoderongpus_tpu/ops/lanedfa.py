@@ -1,22 +1,14 @@
-"""Lane-parallel bit-serial DFA decode — the TPU-shaped decode core.
+"""Lane-parallel bit-serial DFA decode in plain XLA.
 
-Why this shape: TPU vector units have no fast large-table random gather (an
-XLA gather from a table >~64 entries scalarizes to ~0.1 Gelem/s, measured;
-Pallas exposes `tpu.dynamic_gather` only as 2D same-shape take_along_axis).
-The reference's speculative pipeline (decode from every bit + pointer
-doubling, pes.c:30-96) is built out of exactly such big random gathers, so a
-faithful translation can never reach TPU speed-of-light.  This module maps
-Huffman decoding onto what the VPU does well:
+The stream is cut into lanes that decode in parallel, one bit per step:
 
   * The stream is cut into G equal **lanes** of B bits; a (B+H, G) bit
     matrix (H = tree height rows of halo from the next lane) puts step j of
-    every lane in one vector row — static slicing, no gather.
+    every lane in one row — static slicing, no gather.
   * Each lane walks the Huffman tree **one bit per step** via a single fused
     transition table: entry = next-state | emit-flag | symbol with the
     root-reset folded in, so a step is one small-table lookup + shifts.  The
-    table has 2*nodes entries (<= ~1k for byte alphabets), gathered through
-    :func:`small_gather` — a select-tree decomposition into <=64-entry
-    chunks that stays on XLA's fast vectorized gather path.
+    table has 2*(internal nodes) entries (<= ~1k for byte alphabets).
   * Decoded symbols land **padded by step** (B+H, G): the write position is
     static (no scatter); per-lane compaction to dense bytes happens after.
   * Lanes start mid-codeword.  A chain can enter lane g only at one of its
@@ -26,6 +18,10 @@ Huffman decoding onto what the VPU does well:
     sharded decoder (parallel/block_decode.py) — fixes each lane's true
     (entry offset, output base).  Files carrying a block-index sidecar
     (huffio/sidecar.py) skip discovery entirely.
+
+The GPU decode path (ops/lane_gpu.py) runs the same discovery and decode as
+kernels and reuses this module's table and composition; this XLA version is
+its plain reference.
 
 Role in the zoo: device counterpart of the serial DFA decoders
 (jumptableapproach.c / linapproach.c semantics) and the performance
@@ -42,8 +38,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from huffmandecoderongpus_tpu.huffio.bitio import unpack_bits
-
-SMALL_TABLE = 64  # largest table size XLA gathers on the fast vectorized path
 
 EMIT_BIT = 1 << 10
 STATE_MASK = (1 << 10) - 1
@@ -74,8 +68,8 @@ def build_lane_dfa(tree: np.ndarray) -> LaneDFA:
     (huffdata.h:12-16: [sym, izero, ione], row 0 root, leaf <=> izero==-1).
 
     Only internal nodes are ever DFA states (a leaf transition folds into
-    emit + root-reset), so states are renumbered to the internal nodes —
-    halving the table and thus the per-step gather-chunk cost."""
+    emit + root-reset), so states are renumbered to the internal nodes,
+    halving the table."""
     from huffmandecoderongpus_tpu.huffio.tree import table_height, table_min_depth
 
     tree64 = np.ascontiguousarray(tree, dtype=np.int64)
@@ -98,58 +92,6 @@ def build_lane_dfa(tree: np.ndarray) -> LaneDFA:
     t32 = np.ascontiguousarray(tree, dtype=np.int32)
     return LaneDFA(entry=entry, nodes=n, height=table_height(t32),
                    min_depth=table_min_depth(t32))
-
-
-# ---------------------------------------------------------------------------
-# Small-table gather that stays on the TPU fast path
-
-
-def _take_gather(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """``table[idx]`` decomposed into <=64-entry gathers + selects."""
-    t = int(table.shape[0])
-    if t <= SMALL_TABLE:
-        return jnp.take(table, idx, mode="clip")
-    lo = idx & (SMALL_TABLE - 1)
-    hi = idx >> 6
-    out = jnp.take(table[:SMALL_TABLE], lo, mode="clip")
-    for c in range(1, -(-t // SMALL_TABLE)):
-        chunk = table[c * SMALL_TABLE:(c + 1) * SMALL_TABLE]
-        cand = jnp.take(chunk, lo, mode="clip")
-        out = jnp.where(hi == c, cand, out)
-    return out
-
-
-def _select_tree_gather(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """``table[idx]`` as a binary tree of vector selects — t-1 `where` ops,
-    no gather instruction at all.  Pure VPU work: immune to gather lowering
-    cliffs (e.g. gathers inside loop bodies taking the scalar path)."""
-    t = int(table.shape[0])
-    level = [table[i] for i in range(t)]
-    bitpos = 0
-    while len(level) > 1:
-        b = ((idx >> bitpos) & 1) == 1
-        nxt = []
-        for i in range(0, len(level) - 1, 2):
-            nxt.append(jnp.where(b, level[i + 1], level[i]))
-        if len(level) % 2:
-            nxt.append(level[-1])
-        level = nxt
-        bitpos += 1
-    return jnp.broadcast_to(level[0], idx.shape)
-
-
-import os as _os
-
-#: "take" (chunked hardware gather) or "select" (pure select tree); the
-#: HUFF_GATHER env var picks at import time, default "take".
-GATHER_IMPL = _os.environ.get("HUFF_GATHER", "take")
-
-
-def small_gather(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """``table[idx]`` on the TPU-fast path (see GATHER_IMPL)."""
-    if GATHER_IMPL == "select":
-        return _select_tree_gather(table, idx)
-    return _take_gather(table, idx)
 
 
 # ---------------------------------------------------------------------------
@@ -188,9 +130,8 @@ def pick_lanes(bits: int, target_block_bits: int = 4096, max_lanes: int = 1 << 1
 # Device scans
 
 
-#: scan unrolling for the long per-bit loops (amortizes per-step overhead
-#: on TPU); override with HUFF_SCAN_UNROLL
-SCAN_UNROLL = int(_os.environ.get("HUFF_SCAN_UNROLL", "8"))
+#: scan unrolling for the long per-bit loops (amortizes per-step overhead)
+SCAN_UNROLL = 8
 
 
 @functools.partial(jax.jit, static_argnames=("B", "H", "N", "G"))
@@ -207,7 +148,7 @@ def _lane_scan(bits_t, entry_tab, start_off, *, B, H, N, G):
     def step(carry, inp):
         node, done = carry
         bit, j = inp
-        e = small_gather(entry_tab, node * 2 + bit.astype(jnp.int32))
+        e = jnp.take(entry_tab, node * 2 + bit.astype(jnp.int32), mode="clip")
         active = (j >= j0) & ~done & (lane_base + j < N)
         emit = active & ((e & EMIT_BIT) != 0)
         nxt = jnp.where(active, e & STATE_MASK, node)
@@ -238,7 +179,8 @@ def _candidate_scan(bits_t, entry_tab, *, B, H, N, G):
     def step(carry, inp):
         node, cnt, ex, done = carry
         bit, j = inp
-        e = small_gather(entry_tab, node * 2 + bit[None, :].astype(jnp.int32))
+        e = jnp.take(entry_tab, node * 2 + bit[None, :].astype(jnp.int32),
+                     mode="clip")
         active = (j >= offs) & ~done & (lane_base + j < N)
         emit = active & ((e & EMIT_BIT) != 0)
         nxt = jnp.where(active, e & STATE_MASK, node)
@@ -255,19 +197,12 @@ def _candidate_scan(bits_t, entry_tab, *, B, H, N, G):
     return cnt, ex
 
 
-@functools.partial(jax.jit, static_argnames=("G",))
-def _compose(cnt, exit_off, *, G):
-    """Chain the per-lane exit maps: lane 0 enters at offset 0; lane g+1
-    enters where lane g's true chain exits.  Returns (entry_off (G,),
-    base (G,), n (G,), total).
-
-    Blocked two-level composition: a naive scan is G sequential steps
-    (~3 us each on TPU — 50 ms at G=16k).  Exit maps compose associatively,
-    so lanes fold into sqrt(G)-sized groups in parallel (each group
-    evaluates its composite map at ALL H entries), one short scan chains
-    the groups, and a second parallel pass recovers per-lane entries —
-    ~3*sqrt(G) sequential steps total.
-    """
+def _group_maps(cnt, exit_off, G):
+    """Pass 1 of the composition: lanes fold into sqrt(G)-sized groups in
+    parallel, each group's composite exit map evaluated at ALL H entries.
+    Returns (exg, cng, gstate, gcount): the per-lane maps as
+    (H, ngroups, R) and each group's (exit, count) per entry as
+    (H, ngroups)."""
     H = cnt.shape[0]
     R = 1
     while R * R < G:
@@ -284,15 +219,6 @@ def _compose(cnt, exit_off, *, G):
     exg = ex.reshape(H, ngroups, R)
     cng = cn.reshape(H, ngroups, R)
 
-    def _sel0(tab2d, idx2d):
-        # take_along_axis(tab2d, idx2d, axis=0) as H selects — XLA's gather
-        # scalarizes even at this size, and this sits inside fori loops
-        out = jnp.broadcast_to(tab2d[0], idx2d.shape)
-        for hh in range(1, H):
-            out = jnp.where(idx2d == hh, tab2d[hh], out)
-        return out
-
-    # pass 1: each group's composite map, evaluated at all H entries
     def in_group(r, carry):
         state, csum = carry
         csum = csum + _sel0(cng[:, :, r], state)
@@ -301,7 +227,37 @@ def _compose(cnt, exit_off, *, G):
 
     state0 = jnp.tile(jnp.arange(H, dtype=jnp.int32)[:, None], (1, ngroups))
     gstate, gcount = jax.lax.fori_loop(
-        0, R, in_group, (state0, jnp.zeros((H, ngroups), jnp.int32)))
+        0, R, in_group,
+        (state0, jnp.zeros((H, ngroups), jnp.int32)))
+    return exg, cng, gstate, gcount
+
+
+def _sel0(tab2d, idx2d):
+    """``take_along_axis(tab2d, idx2d, axis=0)`` as H selects: faster than
+    the gather on the H100 inside these loops (PERF.md, Kernel
+    decisions)."""
+    out = jnp.broadcast_to(tab2d[0], idx2d.shape)
+    for hh in range(1, tab2d.shape[0]):
+        out = jnp.where(idx2d == hh, tab2d[hh], out)
+    return out
+
+
+@functools.partial(jax.jit, static_argnames=("G",))
+def _compose(cnt, exit_off, entry0=0, base0=0, *, G):
+    """Chain the per-lane exit maps: lane 0 enters at offset ``entry0``
+    with output base ``base0``; lane g+1 enters where lane g's true chain
+    exits.  Returns (entry_off (G,), base (G,), n (G,), total), where
+    ``total`` is ``base0`` plus the symbols of all G lanes.
+
+    Blocked two-level composition: a naive scan is G sequential steps.
+    Exit maps compose associatively, so lanes fold into sqrt(G)-sized
+    groups in parallel (:func:`_group_maps`), one short scan chains the
+    groups, and a second parallel pass recovers per-lane entries —
+    ~3*sqrt(G) sequential steps total.
+    """
+    exg, cng, gstate, gcount = _group_maps(cnt, exit_off, G)
+    ngroups = gstate.shape[1]
+    R = exg.shape[2]
 
     # pass 2: short sequential chain over the groups
     def g_step(carry, g):
@@ -309,7 +265,7 @@ def _compose(cnt, exit_off, *, G):
         return (gstate[off, g], base + gcount[off, g]), (off, base)
 
     (_, total), (g_off, g_base) = jax.lax.scan(
-        g_step, (jnp.int32(0), jnp.int32(0)),
+        g_step, (jnp.asarray(entry0, jnp.int32), jnp.asarray(base0, jnp.int32)),
         jnp.arange(ngroups, dtype=jnp.int32))
 
     # pass 3: per-lane entries within every group, in parallel over groups
@@ -327,6 +283,21 @@ def _compose(cnt, exit_off, *, G):
     return entry_off, base, n, total
 
 
+def _span_map(cnt, exit_off, *, G):
+    """The composite exit map of all G lanes: for each entry offset h of
+    lane 0, (exit offset past lane G-1, symbols emitted), each (H,)."""
+    _, _, gstate, gcount = _group_maps(cnt, exit_off, G)
+    H = cnt.shape[0]
+
+    def fold(g, carry):
+        off, n = carry
+        return gstate[off, g], n + gcount[off, g]
+
+    return jax.lax.fori_loop(
+        0, gstate.shape[1], fold,
+        (jnp.arange(H, dtype=jnp.int32), jnp.zeros(H, jnp.int32)))
+
+
 @functools.partial(jax.jit, static_argnames=("B", "G"))
 def _lane_scan_indexed(bits_t, entry_tab, lane_len, *, B, G):
     """Scan for symbol-aligned lanes (sidecar path): lane g starts on a
@@ -334,7 +305,7 @@ def _lane_scan_indexed(bits_t, entry_tab, lane_len, *, B, G):
     def step(carry, inp):
         node = carry
         bit, j = inp
-        e = small_gather(entry_tab, node * 2 + bit.astype(jnp.int32))
+        e = jnp.take(entry_tab, node * 2 + bit.astype(jnp.int32), mode="clip")
         active = j < lane_len
         emit = active & ((e & EMIT_BIT) != 0)
         nxt = jnp.where(active, e & STATE_MASK, node)

@@ -42,7 +42,6 @@ from huffmandecoderongpus_tpu.ops.lanedfa import (
     STATE_MASK,
     SCAN_UNROLL,
     _candidate_scan,
-    small_gather,
 )
 
 
@@ -63,7 +62,8 @@ def _short_candidate_scan(bits_t, entry_tab, valid0, *, B, H, N, G, W):
     def step(carry, inp):
         node, cnt, mrow, ex, merged, exited = carry
         bit, v0, j = inp
-        e = small_gather(entry_tab, node * 2 + bit[None, :].astype(jnp.int32))
+        e = jnp.take(entry_tab, node * 2 + bit[None, :].astype(jnp.int32),
+                     mode="clip")
         live = (j >= offs) & ~merged & ~exited & (lane_base + j < N)
         emit = live & ((e & EMIT_BIT) != 0)
         nxt = jnp.where(live, e & STATE_MASK, node)
@@ -100,7 +100,7 @@ def _fix_scan(bits_t, entry_tab, start_off, *, B, H, N, G, W):
     def step(carry, inp):
         node, done = carry
         bit, j = inp
-        e = small_gather(entry_tab, node * 2 + bit.astype(jnp.int32))
+        e = jnp.take(entry_tab, node * 2 + bit.astype(jnp.int32), mode="clip")
         active = (j >= j0) & ~done & (lane_base + j < N)
         emit = active & ((e & EMIT_BIT) != 0)
         nxt = jnp.where(active, e & STATE_MASK, node)

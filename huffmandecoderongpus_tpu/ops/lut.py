@@ -1,8 +1,8 @@
 """Full-height decode lookup tables.
 
 The reference's `decodeAllBits` walks the Huffman tree bit-by-bit per offset
-(/root/reference/framework/pes.c:30-46) — data-dependent control flow that a
-TPU cannot vectorize.  We instead precompute, for every possible
+(reference framework/pes.c:30-46) — data-dependent control flow that does
+not vectorize.  We instead precompute, for every possible
 ``height``-bit window (LSB-first), the first decoded symbol and its code
 length — the same table the reference's `decodeBigtableSimple` builds
 (mainrun.c:251-297) — turning the per-bit walk into one vectorized gather.

@@ -11,7 +11,7 @@ openclapproach.c:236-1047).  Six stages:
   2. makebigtable    — pointer doubling over code-length steps (pes.c:48-71).
   3. (loop control)  — the reference reads a 4-byte convergence flag back to
                        the host per doubling step (fastgpu.cu:245-261, the
-                       scalability bottleneck).  TPU-native fix: the level
+                       scalability bottleneck).  Here the level
                        count is a *static* function of the header's
                        uncompressed size — ceil(log2(nsym)) levels — so the
                        whole pipeline compiles to one XLA program with no
@@ -88,15 +88,15 @@ def speculative_decode_xla(
 ):
     """Single-device XLA pipeline. Returns (decoded uint8[size], found_size).
 
-    Stages 4-6 are *redesigned* for the TPU memory system: instead of the
+    Stages 4-6 are *redesigned* as gathers: instead of the
     reference's scatter-based index labeling (calcbitsindex propagates output
     indices onto chain bits, pes.c:73-85, then calcresult scatters symbols,
     pes.c:87-96), each **output byte queries its own bit position**: output
     index i starts at bit 0 and, for every set bit k of i, jumps forward by
     the level-k doubling span — the same binary decomposition walked in the
     opposite direction, as pure gathers over ``size`` elements rather than
-    scatters over ``bits`` elements (4-8x fewer, and TPU gathers vectorize
-    where scatters serialize).
+    scatters over ``bits`` elements (4-8x fewer elements, and gathers need
+    no write ordering).
 
     ``found_size`` reproduces the reference's findmax role (pes.c:98-104) as
     a stream-consistency check: it equals ``size`` iff the chain of ``size``

@@ -1,8 +1,8 @@
 """Multi-device / multi-host layer: mesh construction, block-parallel decode.
 
 This subsystem has no counterpart in the reference (single-process,
-single-device — SURVEY §2.3); it is the required TPU-native extension:
-data parallelism over bitstream blocks on a `jax.sharding.Mesh`.
+single-device — SURVEY §2.3): data parallelism over bitstream blocks and
+lanes on a `jax.sharding.Mesh` of cards.
 """
 
 from huffmandecoderongpus_tpu.parallel.mesh import (  # noqa: F401
@@ -16,9 +16,5 @@ from huffmandecoderongpus_tpu.parallel.block_decode import (  # noqa: F401
 )
 from huffmandecoderongpus_tpu.parallel.lane_sharded import (  # noqa: F401
     decode_lane_sharded,
-    decode_lane_sharded_indexed,
-    decode_lane_sharded_wide,
-    lane_sharded_indexed_runner,
     lane_sharded_runner,
-    lane_sharded_wide_runner,
 )

@@ -1,11 +1,11 @@
 """Device mesh construction and multi-host initialization.
 
 The reference is single-process single-device (SURVEY §2.3): its only
-parallel axis is "every compressed bit is a GPU thread".  The TPU framework
+parallel axis is "every compressed bit is a GPU thread".  This framework
 adds the inter-device axis the reference lacks: data parallelism over
-independent bitstream blocks on a 1-D ``jax.sharding.Mesh``, with ICI
-collectives inside a slice and DCN across hosts (via
-``jax.distributed.initialize``).
+independent bitstream blocks on a flat 1-D ``jax.sharding.Mesh``.  The
+cards of one host are joined all to all (NVLink), so the mesh follows the
+algorithm alone; hosts join through ``jax.distributed.initialize``.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def make_mesh(n_devices: int | None = None, axis: str = BLOCK_AXIS,
 def distributed_init(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
-    """Initialize multi-host JAX (DCN across hosts, ICI within a slice).
+    """Initialize multi-host JAX (one process per host or per card).
 
     Thin wrapper over ``jax.distributed.initialize`` that honours the
     standard env vars when arguments are omitted; a no-op when running

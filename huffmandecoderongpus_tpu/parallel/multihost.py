@@ -1,8 +1,8 @@
 """Multi-process (multi-host) block-parallel decode.
 
 Extends parallel/block_decode.py across process boundaries: the same
-shard_map program runs on a global mesh spanning all processes (ICI within
-a slice, DCN across hosts — jax.distributed), with
+shard_map program runs on a global mesh spanning all processes
+(jax.distributed), with
 
   * inputs (compressed words + LUT) replicated to every process via
     `make_array_from_callback` — the "code-table broadcast" of the
@@ -12,7 +12,7 @@ a slice, DCN across hosts — jax.distributed), with
     "ordered gather" leg.
 
 The reference has no multi-process story at all (SURVEY §2.3); this module
-is the required TPU-native extension, exercised on one machine by
+adds one, exercised on one machine by
 tests/multihost_runner.py (2 CPU processes).
 """
 

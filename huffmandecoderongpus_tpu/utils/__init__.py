@@ -1,6 +1,6 @@
 """Cross-cutting utilities: compile cache, debug dumps, logging.
 
-TPU-native counterparts of the reference's auxiliary subsystems (SURVEY §5):
+Counterparts of the reference's auxiliary subsystems (SURVEY §5):
 the OpenCL kernel-binary cache (openclapproach.c:26-225) becomes the XLA
 persistent compilation cache; the DEBUG/FGPUDEBUG intermediate-buffer dumps
 (fastgpu.cu:226-273, openclapproach.c:431-606) become the env-gated

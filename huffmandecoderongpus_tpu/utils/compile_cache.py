@@ -4,7 +4,11 @@ Role parity with the reference's OpenCL kernel-binary cache
 (loadKernelFromSourceAndSaveAsBinary / getKernelFromBinary,
 openclapproach.c:26-225, gated by BUILD_BINARY_KERNELS/USE_BINARY_KERNELS):
 compiled device programs survive process restarts, so the first-run compile
-cost (~20-40s per distinct shape on TPU) is paid once per machine.
+cost of each distinct shape is paid once per machine.
+
+The directory is ``$JAX_COMPILATION_CACHE_DIR`` when that is set (JAX reads
+the variable itself, and nothing here overrides it), else
+``<checkout>/.cache/jax``.
 """
 
 from __future__ import annotations
@@ -12,31 +16,29 @@ from __future__ import annotations
 import os
 import pathlib
 
-_DEFAULT_DIR = pathlib.Path(
-    os.environ.get("HUFF_COMPILE_CACHE", "~/.cache/huffmandecoderongpus_tpu/xla")
-).expanduser()
+from huffmandecoderongpus_tpu.data import CACHE_DIR
 
-_enabled = False
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
 
 
-def enable_compile_cache(cache_dir: str | os.PathLike | None = None) -> pathlib.Path:
-    """Turn on JAX's persistent compilation cache (idempotent).
+def cache_dir() -> pathlib.Path:
+    """Where compiled programs are kept (see the module docstring)."""
+    env = os.environ.get(ENV_VAR)
+    return pathlib.Path(env) if env else CACHE_DIR / "jax"
 
-    Must be called before the first compilation to benefit it; later calls
-    still help subsequent compiles.
-    """
-    global _enabled
+
+def enable_compile_cache() -> pathlib.Path:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    Call before the first compilation to benefit it; later calls still help
+    subsequent compiles."""
     import jax
 
-    path = pathlib.Path(cache_dir).expanduser() if cache_dir else _DEFAULT_DIR
-    path.mkdir(parents=True, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", str(path))
+    path = cache_dir()
+    if ENV_VAR not in os.environ:
+        path.mkdir(parents=True, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", str(path))
     # cache every program, however quick its compile
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    _enabled = True
     return path
-
-
-def cache_enabled() -> bool:
-    return _enabled

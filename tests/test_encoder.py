@@ -1,4 +1,4 @@
-"""Encoder tests: bit-exact round-trips and size parity with the shipped
+"""Encoder tests: bit-exact round-trips and size parity with the stored
 `.huff` files (the reference has no encoder; this is a new capability)."""
 
 import numpy as np
@@ -15,7 +15,7 @@ from huffmandecoderongpus_tpu.huffio import (
 )
 from huffmandecoderongpus_tpu.huffio.encoder import pack_symbol_codes
 
-WITH_RAW = [n for n in corpus_data.CORPUS_NAMES if corpus_data.has_raw(n)]
+WITH_RAW = corpus_data.CORPUS_NAMES
 
 
 def test_encode_hello_roundtrip():
@@ -25,10 +25,12 @@ def test_encode_hello_roundtrip():
 
 
 def test_encode_hello_same_bits_as_shipped():
-    # Same frequencies => same code lengths => identical payload bit count.
+    # Same frequencies => same code lengths => the reference's hello.huff
+    # bit count (32, mainrun.c:659-663) and the stored fixture's bytes.
     shipped = corpus_data.load_huff("hello")
     ours = encode_bytes(b"Hello World")
     assert ours.bits == shipped.bits == 32
+    assert bytes(ours.payload) == bytes(shipped.payload)
 
 
 @pytest.mark.parametrize("name", WITH_RAW)
@@ -36,14 +38,14 @@ def test_encode_corpus_roundtrip_and_size(name):
     td = corpus_data.load_test_data(name)
     hf = encode_bytes(td.ucd)
     assert (native.bigtable_decode(hf) == td.ucd).all()
-    # encoded size must not exceed the shipped .huff size
+    # encoded size must not exceed the stored .huff size
     assert hf.file_bytes() <= corpus_data.huff_path(name).stat().st_size
 
 
 @pytest.mark.parametrize("name", WITH_RAW)
 def test_reencode_with_shipped_tree_reproduces_payload(name):
-    """Encoding the ground truth with the *shipped* tree must reproduce the
-    shipped payload bit-for-bit — the strongest format-fidelity check."""
+    """Encoding the ground truth with the *stored* tree must reproduce the
+    stored payload bit-for-bit (numpy packer against the file)."""
     td = corpus_data.load_test_data(name)
     code, length, present = tree_codes(td.cd.tree)
     payload, bits = pack_symbol_codes(td.ucd, code, length)

@@ -1,9 +1,10 @@
 """Golden-file matrix over the full 8-file corpus (RUN_SLOW=1).
 
 The reference's de-facto test is every decoder x every corpus against the
-shipped uncompressed bytes (mainrun.c:541-588 via decodeUtil.c:47-52); the
-quick per-commit variant covers the small corpora (test_models.py), and
-this gated matrix covers all 8 including the multi-MB ones.
+uncompressed bytes (mainrun.c:541-588 via decodeUtil.c:47-52); the quick
+per-commit variant covers the small corpora (test_models.py), and this gated
+matrix covers all 8 including the multi-MB ones.  The GPU path's all-corpora
+sweep runs on the card in chip_smoke.py.
 """
 
 import numpy as np
@@ -13,18 +14,9 @@ from huffmandecoderongpus_tpu import data as corpus
 from huffmandecoderongpus_tpu.huffio.encoder import encode_bytes
 from huffmandecoderongpus_tpu.models import get_decoder
 
-ALL = corpus.available_corpora()
+ALL = corpus.CORPUS_NAMES
 BIG_DECODERS = ["simple", "bigtable_simple", "jumptable", "lin",
                 "lane_dfa_sync", "spec_sharded"]
-
-# The flagship Pallas decoders run the Mosaic interpreter under this
-# CPU-pinned suite, which costs ~1 s/10 KB — these corpora keep each case
-# under ~2 min while covering the md-odd (paper1/news) and multi-window
-# (book2) kernel shapes; the all-8-corpora bit-exactness sweep on real
-# hardware lives in test_hw_smoke.py::test_lane_wide_all_corpora_on_hardware.
-PALLAS_DECODERS = [("lane_wide", "paper1"), ("lane_wide", "news"),
-                   ("lane_wide", "book2"),
-                   ("lane_dfa_pallas", "paper1"), ("lane_dfa_pallas", "news")]
 
 
 @pytest.mark.slow
@@ -37,21 +29,10 @@ def test_decoder_corpus_golden(name, dec):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("dec,name", PALLAS_DECODERS)
-def test_flagship_decoder_corpus_golden(dec, name):
-    # the benchmarked decoders themselves, not just their oracles, stay in
-    # the committed golden matrix (decodeUtil.c:47-52 checks every
-    # benchmarked decoder on every suite run)
-    td = corpus.load_test_data(name)
-    out = get_decoder(dec)(td.cd)
-    np.testing.assert_array_equal(np.asarray(out, dtype=np.uint8), td.ucd)
-
-
-@pytest.mark.slow
 @pytest.mark.parametrize("name", ALL)
 def test_reencode_roundtrip_not_larger(name):
     # our encoder on the corpus bytes: decodes back bit-exact and the
-    # container is never larger than the shipped .huff
+    # container is never larger than the stored .huff
     td = corpus.load_test_data(name)
     hf = encode_bytes(td.ucd)
     out = get_decoder("simple")(hf)

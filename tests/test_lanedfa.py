@@ -11,30 +11,22 @@ from huffmandecoderongpus_tpu.ops.lanedfa import (
     build_lane_dfa,
     bits_matrix,
     decode_lanedfa,
-    small_gather,
 )
+from huffmandecoderongpus_tpu.huffio.tree import tree_codes
 
 
 def test_fused_table_hello(hello):
     dfa = build_lane_dfa(hello.cd.tree)
     assert dfa.nodes == 15 and dfa.height == 4
-    # walking 'H' = 110 from the root must emit 'H'
-    e = dfa.entry
-    n = e[0 * 2 + 1] & 0x3FF          # root --1-->
-    n2 = e[n * 2 + 1] & 0x3FF         # --1-->
-    leaf = e[n2 * 2 + 0]              # --0--> leaf 'H'
-    assert leaf & EMIT_BIT
-    assert (leaf >> 16) & 0xFF == ord("H")
-
-
-def test_small_gather_matches_take(rng):
-    import jax.numpy as jnp
-
-    for t in (7, 64, 65, 200, 1024):
-        tab = jnp.asarray(rng.integers(0, 1 << 30, t, dtype=np.int32))
-        idx = jnp.asarray(rng.integers(0, t, 500, dtype=np.int32))
-        np.testing.assert_array_equal(
-            np.asarray(small_gather(tab, idx)), np.asarray(tab)[np.asarray(idx)])
+    # walking the code of 'H' from the root must emit 'H' on its last bit
+    code, length, _ = tree_codes(hello.cd.tree)
+    c, n = int(code[ord("H")]), int(length[ord("H")])
+    state = 0
+    for k in range(n):
+        e = int(dfa.entry[state * 2 + ((c >> k) & 1)])
+        assert bool(e & EMIT_BIT) == (k == n - 1)
+        state = e & 0x3FF
+    assert (e >> 16) & 0xFF == ord("H")
 
 
 def test_bits_matrix_halo():
@@ -114,22 +106,3 @@ def test_lanedfa_with_precomputed_entries(paper1):
     out = decode_lanedfa(paper1.cd, lanes=G,
                          entries=(np.asarray(entry_off), np.asarray(base)))
     np.testing.assert_array_equal(out, paper1.ucd)
-
-
-def test_select_tree_gather_matches_take(rng):
-    import jax.numpy as jnp
-
-    from huffmandecoderongpus_tpu.ops.lanedfa import _select_tree_gather
-
-    for t in (2, 7, 64, 166, 333):
-        tab = jnp.asarray(rng.integers(0, 1 << 30, t, dtype=np.int32))
-        idx = jnp.asarray(rng.integers(0, t, 700, dtype=np.int32))
-        np.testing.assert_array_equal(
-            np.asarray(_select_tree_gather(tab, idx)),
-            np.asarray(tab)[np.asarray(idx)])
-    # 2D index shapes too (candidate-scan carriers)
-    tab = jnp.asarray(rng.integers(0, 99, 37, dtype=np.int32))
-    idx = jnp.asarray(rng.integers(0, 37, (5, 40), dtype=np.int32))
-    np.testing.assert_array_equal(
-        np.asarray(_select_tree_gather(tab, idx)),
-        np.asarray(tab)[np.asarray(idx)])

@@ -10,10 +10,7 @@ from huffmandecoderongpus_tpu.ops.lanedfa import decode_lanedfa
 from huffmandecoderongpus_tpu.ops.lanedfa_sync import decode_lanedfa_sync
 
 
-@pytest.mark.parametrize("lanes", [
-    1, 2, 128,
-    pytest.param(7, marks=pytest.mark.interpret),
-    pytest.param(16, marks=pytest.mark.interpret)])
+@pytest.mark.parametrize("lanes", [1, 2, 128, 7, 16])
 def test_sync_paper1(paper1, lanes):
     out = decode_lanedfa_sync(paper1.cd, lanes=lanes)
     np.testing.assert_array_equal(out, paper1.ucd)
@@ -35,7 +32,6 @@ def test_sync_registry(paper1):
     np.testing.assert_array_equal(out, paper1.ucd)
 
 
-@pytest.mark.interpret
 def test_sync_matches_baseline_random(rng):
     for n in (100, 5000, 65537):
         raw = rng.integers(0, 256, size=n, dtype=np.uint8)

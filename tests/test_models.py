@@ -11,18 +11,11 @@ from huffmandecoderongpus_tpu.models.dfa import build_jump_dfa, build_lin_dfa
 
 SMALL = ["hello", "paper1"]
 DECODERS = sorted(all_decoders())
-
-# combos that cost >30s of Mosaic-interpreter time each: nightly
-# (RUN_SLOW=1) keeps them; the default gate covers the same kernels via
-# smaller dedicated tests (test_oneshot, test_widescan_oneshot_routing,
-# test_parallel's small sharded-wide case)
-_INTERPRET_HEAVY = {("lane_oneshot", "paper1"), ("lane_sharded_wide", "paper1"),
-                    ("lane_wide", "paper1")}
-MATRIX = [
-    pytest.param(d, n, marks=pytest.mark.interpret)
-    if (d, n) in _INTERPRET_HEAVY else (d, n)
-    for d in DECODERS for n in SMALL
-]
+# decoders that compile only for the card: tested in interpret mode
+# (test_lane_gpu.py) and on the card (chip_smoke.py)
+GPU_ONLY = sorted(n for n, d in all_decoders().items()
+                  if d.backend.startswith("gpu"))
+MATRIX = [(d, n) for d in DECODERS if d not in GPU_ONLY for n in SMALL]
 
 
 def test_zoo_covers_reference_inventory():
@@ -52,6 +45,13 @@ def test_every_decoder_every_small_corpus(decoder, name):
     if d.checks_output:
         assert out.size == td.ucd.size
         assert (out == td.ucd).all()
+
+
+@pytest.mark.parametrize("decoder", GPU_ONLY)
+def test_gpu_decoder_raises_without_gpu(decoder, hello):
+    # no silent fallback to the interpreter when JAX has no GPU
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        get_decoder(decoder)(hello.cd)
 
 
 @pytest.mark.parametrize("jumpbits", [1, 2, 3, 5, 8, 11, 14])

@@ -1,7 +1,7 @@
 """2-process jax.distributed decode on one machine (multi-host simulation).
 
-The reference is single-process (SURVEY §2.3); this exercises the DCN leg
-of the TPU design — jax.distributed init, replicated table broadcast,
+The reference is single-process (SURVEY §2.3); this exercises the multi-process leg
+of the design — jax.distributed init, replicated table broadcast,
 global-mesh shard_map, ordered cross-process gather — without real hosts.
 """
 
